@@ -1,4 +1,4 @@
-"""TPU atomic path vs sequential oracle: exact-equivalence differential tests
+"""JAX atomic path vs sequential oracle: exact-equivalence differential tests
 (the rebuild's formalization of the reference's cross-implementation
 validation, SURVEY.md §4.2-4.3), plus determinism and hierarchy invariants."""
 
@@ -8,15 +8,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.atomic_boruvka import (
+from gseg.config import SegmentationConfig
+from gseg.models.atomic_boruvka import (
     segment_atomic,
     segment_atomic_hierarchy,
     segment_atomic_hostsync,
 )
-from gseg_tpu.models.boruvka_cpu import segment_boruvka_np
-from gseg_tpu.utils.labels import num_components
-from gseg_tpu.utils.synthetic import blobs_image, checkerboard_image, gradient_image
+from gseg.models.boruvka_cpu import segment_boruvka_np
+from gseg.utils.labels import num_components
+from gseg.utils.synthetic import blobs_image, checkerboard_image, gradient_image
 
 
 CASES = [

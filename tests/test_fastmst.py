@@ -7,16 +7,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.atomic_boruvka import segment_atomic
-from gseg_tpu.models.boruvka_cpu import segment_boruvka_np
-from gseg_tpu.models.fastmst import segment_fastmst, segment_fastmst_hierarchy
-from gseg_tpu.models.superpixel import (
+from gseg.config import SegmentationConfig
+from gseg.models.atomic_boruvka import segment_atomic
+from gseg.models.boruvka_cpu import segment_boruvka_np
+from gseg.models.fastmst import segment_fastmst, segment_fastmst_hierarchy
+from gseg.models.superpixel import (
     segment_superpixel,
     segment_superpixel_hierarchy,
 )
-from gseg_tpu.utils.labels import num_components
-from gseg_tpu.utils.synthetic import blobs_image
+from gseg.utils.labels import num_components
+from gseg.utils.synthetic import blobs_image
 
 
 CASES = [
@@ -84,7 +84,7 @@ def test_runout_slice_matches_full_pool(monkeypatch):
     the cond is actually present."""
     import jax
 
-    from gseg_tpu.models.fastmst import segment_fastmst_flagged
+    from gseg.models.fastmst import segment_fastmst_flagged
 
     img = blobs_image(260, 300, num_blobs=8, noise=8.0, seed=5)
     cfg = SegmentationConfig(k=150.0, min_size=20)

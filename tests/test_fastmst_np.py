@@ -5,13 +5,13 @@ agree."""
 import numpy as np
 import jax.numpy as jnp
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.boruvka_cpu import segment_boruvka_np
-from gseg_tpu.models.fastmst import segment_fastmst
-from gseg_tpu.models.fastmst_np import segment_fastmst_np, superpixel_hierarchy_np
-from gseg_tpu.models.superpixel import segment_superpixel_hierarchy
-from gseg_tpu.utils.labels import canonical_min_labels_np
-from gseg_tpu.utils.synthetic import blobs_image
+from gseg.config import SegmentationConfig
+from gseg.models.boruvka_cpu import segment_boruvka_np
+from gseg.models.fastmst import segment_fastmst
+from gseg.models.fastmst_np import segment_fastmst_np, superpixel_hierarchy_np
+from gseg.models.superpixel import segment_superpixel_hierarchy
+from gseg.utils.labels import canonical_min_labels_np
+from gseg.utils.synthetic import blobs_image
 
 
 def test_fastmst_np_matches_oracle(small_image, small_cfg):
@@ -27,7 +27,7 @@ def test_fastmst_np_matches_jax(small_image, small_cfg):
 
 
 def test_hierarchy_levels_match_jax():
-    from gseg_tpu.models.fastmst import segment_fastmst_hierarchy
+    from gseg.models.fastmst import segment_fastmst_hierarchy
 
     cfg = SegmentationConfig(k=100.0, min_size=8, max_iters=16)
     img = blobs_image(24, 32, 4, 5.0, 2)

@@ -3,9 +3,9 @@
 
 import numpy as np
 
-from gseg_tpu.bench.harness import run_quality_benchmark, summarize_quality
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.utils.datasets import synthetic_quality_set
+from gseg.bench.harness import run_quality_benchmark, summarize_quality
+from gseg.config import SegmentationConfig
+from gseg.utils.datasets import synthetic_quality_set
 
 
 def test_quality_pipeline_runs_and_scores_sanely():
@@ -39,7 +39,7 @@ def test_quality_rows_schema():
 def test_bsds_like_scene_structure():
     """The BSDS500 stand-in (reference protocol shape, README.md:21):
     deterministic, multiple GTs at annotator-like granularities."""
-    from gseg_tpu.utils.synthetic import bsds_like_scene
+    from gseg.utils.synthetic import bsds_like_scene
 
     img, gts = bsds_like_scene(h=81, w=121, n_regions=40, seed=3)
     img2, gts2 = bsds_like_scene(h=81, w=121, n_regions=40, seed=3)
@@ -62,14 +62,13 @@ def test_bsds_like_protocol_level4():
     BSDS-scale stand-in, CPU oracle + one hierarchy algorithm."""
     import jax.numpy as jnp
 
-    from gseg_tpu.bench.harness import segment_level_fn
-    from gseg_tpu.metrics.compare import asa_ue_best_gt
-    from gseg_tpu.utils.datasets import bsds_like_quality_set
-    from gseg_tpu.utils.labels import compact_labels_np
+    from gseg.bench.harness import segment_level_fn
+    from gseg.metrics.compare import asa_ue_best_gt
+    from gseg.utils.datasets import bsds_like_quality_set
+    from gseg.utils.labels import compact_labels_np
 
-    # small shape keeps the 1-core CI compile bounded; the campaign runs
-    # the full 321x481 set on hardware (scripts/run_evidence.py --sections
-    # bsds).
+    # small shape keeps the CI compile bounded; the protocol itself runs
+    # the full 321x481 set.
     (name, image, gts), = list(
         bsds_like_quality_set(n=1, h=81, w=121)
     )
@@ -88,9 +87,9 @@ def test_segment_level_fn_picks_requested_level():
     """level-k output must equal hierarchy level k from the raw API."""
     import jax.numpy as jnp
 
-    from gseg_tpu.bench.harness import segment_level_fn
-    from gseg_tpu.models.fastmst import segment_fastmst_hierarchy
-    from gseg_tpu.utils.synthetic import blobs_image
+    from gseg.bench.harness import segment_level_fn
+    from gseg.models.fastmst import segment_fastmst_hierarchy
+    from gseg.utils.synthetic import blobs_image
 
     img = jnp.asarray(blobs_image(40, 56, 5, 5.0, 1))
     cfg = SegmentationConfig(k=80.0, min_size=100, on_overflow="fallback")

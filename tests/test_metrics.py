@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gseg_tpu.metrics.compare import asa_ue, asa_ue_best_gt, asa_ue_jax
-from gseg_tpu.utils.labels import compact_labels_np
+from gseg.metrics.compare import asa_ue, asa_ue_best_gt, asa_ue_jax
+from gseg.utils.labels import compact_labels_np
 
 
 def test_perfect_segmentation():

@@ -4,12 +4,12 @@ the rebuild's version of the reference's cross-implementation validation)."""
 import numpy as np
 import pytest
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.metrics.compare import asa_ue
-from gseg_tpu.models.felzenszwalb_cpu import segment_kruskal_np
-from gseg_tpu.native import bindings
-from gseg_tpu.utils.labels import canonical_min_labels_np
-from gseg_tpu.utils.synthetic import blobs_image
+from gseg.config import SegmentationConfig
+from gseg.metrics.compare import asa_ue
+from gseg.models.felzenszwalb_cpu import segment_kruskal_np
+from gseg.native import bindings
+from gseg.utils.labels import canonical_min_labels_np
+from gseg.utils.synthetic import blobs_image
 
 pytestmark = pytest.mark.skipif(
     not bindings.available(), reason="native library not buildable"

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.ndimage
 
-from gseg_tpu.ops import filters, grid_graph as gg
-from gseg_tpu.ops.primitives import (
+from gseg.ops import filters, grid_graph as gg
+from gseg.ops.primitives import (
     INT32_MAX,
     compact_indices,
     component_min_edge,

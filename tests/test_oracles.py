@@ -5,11 +5,11 @@ executable specifications, so they get their own invariant tests.)"""
 import numpy as np
 import pytest
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.boruvka_cpu import segment_boruvka_np
-from gseg_tpu.models.felzenszwalb_cpu import segment_kruskal_np
-from gseg_tpu.utils.labels import compact_labels_np, num_components
-from gseg_tpu.utils.synthetic import blobs_image, checkerboard_image, gradient_image
+from gseg.config import SegmentationConfig
+from gseg.models.boruvka_cpu import segment_boruvka_np
+from gseg.models.felzenszwalb_cpu import segment_kruskal_np
+from gseg.utils.labels import compact_labels_np, num_components
+from gseg.utils.synthetic import blobs_image, checkerboard_image, gradient_image
 
 
 def _assert_valid_labels(labels, h, w):

@@ -7,15 +7,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.atomic_boruvka import segment_atomic
-from gseg_tpu.parallel.batching import (
+from gseg.config import SegmentationConfig
+from gseg.models.atomic_boruvka import segment_atomic
+from gseg.parallel.batching import (
     data_parallel_mesh,
     segment_batch,
     segment_batch_sharded,
 )
-from gseg_tpu.parallel.spatial import multichip_step, segment_spatial, spatial_mesh
-from gseg_tpu.utils.synthetic import blobs_image
+from gseg.parallel.spatial import multichip_step, segment_spatial, spatial_mesh
+from gseg.utils.synthetic import blobs_image
 
 needs_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 virtual devices"
@@ -67,8 +67,8 @@ def test_multichip_step_2d_mesh(cfg):
 
 
 def test_segment_batch_turbo():
-    from gseg_tpu.models.turbo import segment_turbo
-    from gseg_tpu.utils.labels import canonical_min_labels_np
+    from gseg.models.turbo import segment_turbo
+    from gseg.utils.labels import canonical_min_labels_np
 
     cfg = SegmentationConfig(k=120.0, min_size=4, max_iters=16,
                              algorithm="turbo")
@@ -82,8 +82,8 @@ def test_segment_batch_turbo():
 def test_turbo_spatial_matches_dense():
     """Explicit shard_map turbo (halo-exchange gossip, gathered extraction,
     replicated stage 2) equals the dense single-device turbo partition."""
-    from gseg_tpu.models.turbo import segment_turbo
-    from gseg_tpu.parallel.turbo_spatial import segment_turbo_spatial
+    from gseg.models.turbo import segment_turbo
+    from gseg.parallel.turbo_spatial import segment_turbo_spatial
 
     cfg = SegmentationConfig(k=120.0, min_size=8)
     img = blobs_image(48, 40, 5, 6.0, 2)
@@ -98,9 +98,9 @@ def test_turbo_spatial_matches_dense():
 def test_turbo_spatial_quality_mode_matches_dense():
     """Quality mode (weight_buckets) on the shard_map path: the gathered
     global threshold sample, bucket ramp, and stage-2 schedule must
-    reproduce the dense partition exactly (VERDICT r2 item 9)."""
-    from gseg_tpu.models.turbo import segment_turbo
-    from gseg_tpu.parallel.turbo_spatial import segment_turbo_spatial
+    reproduce the dense partition exactly."""
+    from gseg.models.turbo import segment_turbo
+    from gseg.parallel.turbo_spatial import segment_turbo_spatial
 
     cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16)
     img = blobs_image(48, 40, 5, 6.0, 3)
@@ -116,8 +116,8 @@ def test_turbo_spatial_quality_mode_matches_dense():
 
 @needs_devices
 def test_turbo_spatial_minsize_and_edgecases():
-    from gseg_tpu.models.turbo import segment_turbo
-    from gseg_tpu.parallel.turbo_spatial import segment_turbo_spatial
+    from gseg.models.turbo import segment_turbo
+    from gseg.parallel.turbo_spatial import segment_turbo_spatial
 
     cfg = SegmentationConfig(k=60.0, min_size=20)
     img = blobs_image(64, 24, 6, 8.0, 5)
@@ -130,8 +130,8 @@ def test_turbo_spatial_minsize_and_edgecases():
 
 def test_segment_batch_fastmst_and_superpixel():
     """Batched compact-round paths (lax.map of the flagged impls)."""
-    from gseg_tpu.models.fastmst import segment_fastmst
-    from gseg_tpu.models.superpixel import segment_superpixel
+    from gseg.models.fastmst import segment_fastmst
+    from gseg.models.superpixel import segment_superpixel
 
     imgs = np.stack([blobs_image(16, 24, 4, 5.0, s) for s in range(2)])
     for algo, single in (

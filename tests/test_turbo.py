@@ -9,11 +9,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from gseg_tpu.config import SegmentationConfig
-from gseg_tpu.models.boruvka_cpu import segment_boruvka_np
-from gseg_tpu.models.turbo import segment_turbo
-from gseg_tpu.utils.labels import canonical_min_labels_np, num_components
-from gseg_tpu.utils.synthetic import blobs_image, checkerboard_image, gradient_image
+from gseg.config import SegmentationConfig
+from gseg.models.boruvka_cpu import segment_boruvka_np
+from gseg.models.turbo import segment_turbo
+from gseg.utils.labels import canonical_min_labels_np, num_components
+from gseg.utils.synthetic import blobs_image, checkerboard_image, gradient_image
 
 
 CASES = [
@@ -61,10 +61,10 @@ def test_bucketed_quality_mode_parity(wb):
 def test_bucketed_mode_recovers_kruskal_quality():
     """The headline quality claim: 16-bucket ramp reaches CPU-baseline ASA
     (the reference's GPU variants were 3-8 ASA points below, BASELINE.md)."""
-    from gseg_tpu.metrics.compare import asa_ue
-    from gseg_tpu.models.felzenszwalb_cpu import segment_kruskal_np
-    from gseg_tpu.utils.datasets import synthetic_quality_set
-    from gseg_tpu.utils.labels import compact_labels_np
+    from gseg.metrics.compare import asa_ue
+    from gseg.models.felzenszwalb_cpu import segment_kruskal_np
+    from gseg.utils.datasets import synthetic_quality_set
+    from gseg.utils.labels import compact_labels_np
 
     cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16)
     cfg_kr = SegmentationConfig(k=30.0, min_size=10)
@@ -136,8 +136,8 @@ def test_capacity_overflow_detected_not_silent():
 def test_chunked_pair_extract_matches_flat_dedup():
     """Multi-chunk extraction must cover every pair's global-min edge
     (duplicates allowed, losses not)."""
-    from gseg_tpu.models.turbo import _chunked_pair_extract
-    from gseg_tpu.ops.primitives import INT32_MAX
+    from gseg.models.turbo import _chunked_pair_extract
+    from gseg.ops.primitives import INT32_MAX
 
     rng = np.random.default_rng(0)
     n = 1024
@@ -178,35 +178,10 @@ def test_chunked_pair_extract_matches_flat_dedup():
     assert got == best
 
 
-def test_full_pipeline_pallas_path_matches_oracle():
-    """End-to-end turbo with the Pallas kernels forced (interpret mode):
-    the production TPU path (boundary_extract pool + gossip strip kernels)
-    must produce the oracle partition, same as the XLA path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gseg_tpu.models import turbo as turbo_mod
-
-    cfg = SegmentationConfig(k=100.0, min_size=8)
-    img = blobs_image(24, 40, 5, 6.0, 7)
-    expected = canonical_min_labels_np(segment_boruvka_np(img, cfg))
-
-    orig = turbo_mod._use_pallas
-    turbo_mod._use_pallas = lambda: True
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got, flags = turbo_mod.segment_turbo_impl(
-                jnp.asarray(img), cfg, 4
-            )
-    finally:
-        turbo_mod._use_pallas = orig
-    assert int(flags) == 0
-    assert np.array_equal(expected, np.asarray(got))
-
-
 def test_hierarchy_levels_nest_and_match_oracle():
     """Turbo-native hierarchy: level 0 singletons, monotone nesting, final
     labels equal to segment_turbo / the oracle partition."""
-    from gseg_tpu.models.turbo import segment_turbo_hierarchy
+    from gseg.models.turbo import segment_turbo_hierarchy
 
     cfg = SegmentationConfig(k=100.0, min_size=8)
     img = blobs_image(24, 32, 5, 6.0, 0)
@@ -233,8 +208,8 @@ def test_hierarchy_per_level_partitions_match_fastmst():
     """The turbo hierarchy's per-round partition sequence equals the
     fastmst hierarchy's (same merge rule per felz round, different
     schedule), compared as canonical partitions level by level."""
-    from gseg_tpu.models.fastmst import segment_fastmst_hierarchy
-    from gseg_tpu.models.turbo import segment_turbo_hierarchy
+    from gseg.models.fastmst import segment_fastmst_hierarchy
+    from gseg.models.turbo import segment_turbo_hierarchy
 
     cfg = SegmentationConfig(k=120.0, min_size=1, max_iters=12)
     img = blobs_image(20, 28, 4, 5.0, 3)
@@ -249,13 +224,13 @@ def test_hierarchy_per_level_partitions_match_fastmst():
 
 def test_rlist_sizes_exact():
     """_rlist_sizes: exact new-component sizes from an old-root list."""
-    from gseg_tpu.models.turbo import _build_rlist, _rlist_sizes
+    from gseg.models.turbo import _build_rlist, _rlist_sizes
 
     rng = np.random.default_rng(9)
     h, w = 17, 23
     v = h * w
     # old partition: random blocks canonicalized to min flat id
-    from tests.test_pallas_gossip import _canonicalize
+    from tests.test_fixpoints import _canonical as _canonicalize
 
     L_old = jnp.asarray(_canonicalize(
         rng.integers(0, 5, (h, w)).astype(np.int32)))
@@ -311,7 +286,7 @@ def test_rlist_split_loop_matches_single_loop(monkeypatch):
     speed and quality modes."""
     import jax
 
-    from gseg_tpu.models import turbo as T
+    from gseg.models import turbo as T
 
     for cfg in (SegmentationConfig(k=100.0, min_size=8),
                 SegmentationConfig(k=30.0, min_size=10, weight_buckets=8)):
@@ -327,43 +302,6 @@ def test_rlist_split_loop_matches_single_loop(monkeypatch):
         jax.clear_caches()
         assert np.array_equal(outs["1"], outs["0"])
         assert np.array_equal(outs["1"], expected)
-
-
-def test_extract_small_path_matches_full_dedup(monkeypatch):
-    """GSEG_EX_SMALL routing (Pallas path, interpret mode): the sliced
-    candidate dedup must match the full-capacity dedup and the oracle.
-    NOTE: at CI shapes the candidate count can never exceed the floored
-    slice, so only the small branch is runtime-reachable with the knob on;
-    the knob-off run compiles and runs the full-capacity dedup. The
-    cnt > small_cap big branch is exercised on hardware by the sponge/
-    quality sweeps (scripts/check_tpu_parity.py)."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gseg_tpu.models import turbo as turbo_mod
-
-    cfg = SegmentationConfig(k=100.0, min_size=8)
-    img = blobs_image(24, 40, 5, 6.0, 7)
-    expected = canonical_min_labels_np(segment_boruvka_np(img, cfg))
-    orig = turbo_mod._use_pallas
-    turbo_mod._use_pallas = lambda: True
-    outs = {}
-    try:
-        for ex in ("1", "0"):
-            monkeypatch.setenv("GSEG_EX_SMALL", ex)
-            jax.clear_caches()
-            with pltpu.force_tpu_interpret_mode():
-                got, flags = turbo_mod.segment_turbo_impl(
-                    jnp.asarray(img), cfg, 4
-                )
-            assert int(flags) == 0
-            outs[ex] = np.asarray(got)
-    finally:
-        turbo_mod._use_pallas = orig
-        monkeypatch.undo()
-        jax.clear_caches()
-    assert np.array_equal(outs["1"], outs["0"])
-    assert np.array_equal(outs["1"], expected)
 
 
 def test_prune_keeps_minsize_hook_targets():
@@ -394,88 +332,25 @@ def test_prune_keeps_minsize_hook_targets():
     assert np.array_equal(got, expected)
 
 
-def test_partition_matches_oracle_multistrip(monkeypatch):
-    """End-to-end turbo vs the sequential oracle with the pipeline's
-    gossip fixpoints FORCED multi-strip (GSEG_SKIP_ROWS=8 -> 12 strips at
-    h=96): the round-3 wrap bug and the round-4 refined-wake protocol
-    (last-step self-wake + halo-band neighbor wakes) are only exercised
-    when strips actually interact — every other end-to-end CI case fits
-    one strip at the 72-row floor. Unique shape: jit caches are keyed by
-    shape/cfg, so reusing a shape compiled without the env knob would
-    silently test the single-strip program."""
-    monkeypatch.setenv("GSEG_SKIP_ROWS", "8")
+def test_partition_matches_oracle_multistrip(emulated):
+    """End-to-end turbo vs the sequential oracle with every dense fixpoint
+    run as GPU-style tile passes (kernel emulated on the host) over tiles
+    of 4 x 8 cells: 24 x 7 tiles at h=96, so passes interact across tile
+    edges in every round, where halo and fill mistakes would show."""
+    import jax
+
+    from gseg.bench.fixpoints import fixpoints
+    from gseg.models import turbo as turbo_mod
+    from gseg.ops import tilepass
+
     cfg = SegmentationConfig(k=200.0, min_size=20, connectivity=8)
     img = blobs_image(96, 56, 6, 6.0, 11)
     expected = canonical_min_labels_np(segment_boruvka_np(img, cfg))
-    got = np.asarray(segment_turbo(jnp.asarray(img), cfg))
-    assert np.array_equal(expected, got)
-
-
-def test_peel_runs_sizes_matches_oracle(monkeypatch):
-    """GSEG_PEEL_SIZES=runs (Pallas path, interpret mode): speed-mode
-    peel rounds with the dist-free flood + run-pool sizes must produce
-    the oracle partition with flags=0, same as the default subsum
-    scheme. The run pool holds here (cap floor >= V), so this covers the
-    by_runs branch; the overflow fallback is covered below."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gseg_tpu.models import turbo as turbo_mod
-
-    cfg = SegmentationConfig(k=100.0, min_size=8)
-    img = blobs_image(24, 40, 5, 6.0, 7)
-    expected = canonical_min_labels_np(segment_boruvka_np(img, cfg))
-
-    monkeypatch.setenv("GSEG_PEEL_SIZES", "runs")
-    monkeypatch.setattr(turbo_mod, "_use_pallas", lambda: True)
-    with pltpu.force_tpu_interpret_mode():
-        got, flags = turbo_mod.segment_turbo_impl(jnp.asarray(img), cfg, 4)
+    with fixpoints(tilepass):
+        got, flags = jax.jit(lambda im: turbo_mod.segment_turbo_impl(
+            im, cfg, 2))(jnp.asarray(img))
     assert int(flags) == 0
     assert np.array_equal(expected, np.asarray(got))
-
-
-def test_runs_sizes_both_branches_match_scatter(monkeypatch):
-    """_runs_sizes == _component_sizes on both lax.cond branches (Pallas
-    interpret). by_runs: an oracle partition whose run count fits the
-    1024-slot cap floor. by_scatter: the identity labeling (every pixel
-    its own root — 2560 runs at 40x64 > 1024) forces run-pool overflow,
-    which must fall back to the flat scatter, not flag or misreport."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gseg_tpu.models import turbo as turbo_mod
-
-    h, w = 40, 64
-    img = blobs_image(h, w, 6, 6.0, 3)
-    cfg = SegmentationConfig(k=100.0, min_size=8)
-    L = jnp.asarray(
-        canonical_min_labels_np(segment_boruvka_np(img, cfg)), jnp.int32)
-    runs = int(np.sum(np.asarray(L)[:, 1:] != np.asarray(L)[:, :-1])) + h
-    assert runs <= 1024  # guarantees the by_runs branch below
-
-    monkeypatch.setattr(turbo_mod, "_use_pallas", lambda: True)
-    expected = np.asarray(turbo_mod._component_sizes(L)[0])
-    with pltpu.force_tpu_interpret_mode():
-        S_runs, ovf = turbo_mod._runs_sizes(L)
-    assert not bool(ovf)
-    assert np.array_equal(expected, np.asarray(S_runs))
-
-    Lid = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
-    assert h * w > 1024  # identity labeling overflows the cap floor
-    with pltpu.force_tpu_interpret_mode():
-        S_fb, ovf_fb = turbo_mod._runs_sizes(Lid)
-    assert not bool(ovf_fb)
-    assert np.array_equal(np.ones((h, w), np.int32), np.asarray(S_fb))
-
-
-def test_peel_runs_cpu_degrades_to_count(monkeypatch):
-    """GSEG_PEEL_SIZES=runs on the XLA/CPU path degrades to the counting
-    scatter (no Pallas run pool) — the partition must match the oracle
-    through segment_turbo's public surface."""
-    monkeypatch.setenv("GSEG_PEEL_SIZES", "runs")
-    cfg = SegmentationConfig(k=200.0, min_size=20, connectivity=8)
-    img = blobs_image(48, 56, 6, 6.0, 11)
-    expected = canonical_min_labels_np(segment_boruvka_np(img, cfg))
-    got = np.asarray(segment_turbo(jnp.asarray(img), cfg))
-    assert np.array_equal(expected, got)
 
 
 def test_flood_pointer_matches_oracle(monkeypatch):
@@ -485,7 +360,7 @@ def test_flood_pointer_matches_oracle(monkeypatch):
     are cleared around the flip."""
     import jax
 
-    from gseg_tpu.models import turbo as turbo_mod
+    from gseg.models import turbo as turbo_mod
 
     cfg = SegmentationConfig(k=120.0, min_size=10)
     img = blobs_image(40, 56, 6, 6.0, 13)
